@@ -8,15 +8,23 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 
 1. identify the card (name and power limit from ``nvidia-smi``);
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source) and time the build;
+   (one ``nvcc`` per source, all started together) and time the builds;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes, and time both;
-4. drive the main path — ``ParticipationController.solve_batched`` on a
+   main path's shapes and at edge shapes, and time both (and, for
+   ``fedavg_agg``, one library call computing the same products);
+4. drive the game path — ``ParticipationController.solve_batched`` on a
    (500, 50) heterogeneous fleet in modes ``"ne"`` and ``"centralized"``,
    then ``poa_report`` — with the launch counters zeroed just before and
    read just after, and check the outputs (finite, shaped, the kernel path
    against the f64 path, the card against the CPU on a small fleet);
-5. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+5. drive the campaign path — ``run_campaigns`` replaying phase 4's 500
+   ``"ne"`` profiles through 50-round FedAvg campaigns of the synthetic MLP
+   task, with churn, deadlines and two hardware tiers — with the counters
+   zeroed just before and read just after; check the outputs, then run it
+   again through the merge's plain version on the same draws and compare;
+6. run a small campaign on the card and on the CPU from the same numpy
+   draws and compare them;
+7. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 TF32 is switched off for matrix products (and cuDNN), so the float64/fp32
 einsums of the kernel path run at full precision. Without CUDA, or without
@@ -25,6 +33,7 @@ no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +46,14 @@ B_FLEET, N_NODES = 500, 50          # benchmarks/heterogeneous_sweep.py sizes
 B_CHECK = 4                          # small fleet held against the CPU
 H100_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 H100_FP32_FLOP_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+P_MLP = 3258                         # synthetic_mlp_task() parameters
+# benchmarks/heterogeneous_campaign.py:71-72, 87-91, with N = 50
+CAMPAIGN = dict(n_clients=N_NODES, local_steps=1, batch_per_client=8,
+                max_rounds=50, target_acc=0.73, seed=1)
+LR = 0.15
+TARGET_F32 = 0.7300000190734863     # float32(0.73), the tracker's target
+ACC_STEP = 1 / 128                   # one validation sample
+SMALL = dict(b=4, n=6, rounds=12)    # the card-vs-CPU campaign
 
 
 def card_line() -> str:
@@ -117,6 +134,29 @@ def poibin_bound_ms(b: int, n: int, with_loo: bool) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fedavg_bound_ms(b: int, n: int, p: int, itemsize: int
+                    ) -> tuple[float, str]:
+    """Least time for one fedavg_agg call at (B, N, P) on an H100 SXM.
+
+    Bytes: the client slab and the globals read once, the fp32 mask read
+    once, the output written once. Operations: a multiply-add per client
+    value and a division per output, 2 N P + P per scenario in fp32.
+    """
+    nbytes = itemsize * (b * n * p + 2 * b * p) + 4 * b * n
+    ops = b * (2 * n * p + p)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    import torch
+
+    _, exp = torch.frexp(x.float().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
 def trace_short_solve(solve) -> dict | None:
     """Wall time of ``solve()`` without tracing, then its device activity
     under ``torch.profiler``; ``None`` when the trace holds no device
@@ -145,6 +185,161 @@ def trace_short_solve(solve) -> dict | None:
             "busy_s_per_sweep": busy / sweeps, "idle_share": 1 - busy / wall}
 
 
+def small_campaign(device: str):
+    """A B = 4, N = 6, R = 12 campaign on ``device`` whose every random
+    input — uniforms, initial parameters, client batches, validation
+    batch — is made with numpy from one seed, so two devices see the same
+    numbers (their generators differ)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.federated.campaign import (CampaignDraws, ChurnConfig,
+                                                DeadlineConfig, run_campaigns)
+    from repro_torch.federated.simulation import FLConfig
+    from repro_torch.federated.tasks import synthetic_mlp_task
+    from repro_torch.optim import sgd
+
+    b, n, rounds = SMALL["b"], SMALL["n"], SMALL["rounds"]
+    rng = np.random.default_rng(7)
+    shape, d, hidden = (8, 8, 3), 192, 16
+    templates = rng.standard_normal((10, *shape))
+
+    def images(labels):
+        return templates[labels] + 2.5 * rng.standard_normal(
+            labels.shape + shape)
+
+    labels = rng.integers(0, 10, (rounds, n, 1, 8))
+    batches = {"images": images(labels), "labels": labels}
+    val_labels = rng.integers(0, 10, (128,))
+    val = {"images": images(val_labels), "labels": val_labels}
+    params = {"w1": rng.standard_normal((b, d, hidden)) * d ** -0.5,
+              "b1": np.zeros((b, hidden)),
+              "w2": rng.standard_normal((b, hidden, 10)) * hidden ** -0.5,
+              "b2": np.zeros((b, 10))}
+    u = {k: rng.uniform(size=(b, rounds, n))
+         for k in ("mask", "arrive", "depart", "late")}
+    p = rng.uniform(0.3, 1.0, (b, n))
+
+    dev = torch.device(device)
+    batches = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
+    task = dataclasses.replace(
+        synthetic_mlp_task(device=dev),
+        client_data=lambda cids, r, n_, steps: {
+            k: v[r][list(cids)] for k, v in batches.items()},
+        val_batch={k: torch.from_numpy(v).to(dev) for k, v in val.items()})
+    draws = CampaignDraws.from_arrays(u["mask"], params, u["arrive"],
+                                      u["depart"], u["late"], device=dev)
+    fl = FLConfig(n_clients=n, local_steps=1, batch_per_client=8,
+                  max_rounds=rounds, target_acc=0.73, seed=0)
+    rates = (np.linspace(900.0, 1400.0, n)[None], np.full((1, n), 968.5))
+    return run_campaigns(fl, *task.campaign_args(), sgd(LR), p,
+                         energy_rates_j=rates,
+                         churn=ChurnConfig(arrival=0.3, departure=0.1),
+                         deadline=DeadlineConfig(miss=0.1), draws=draws,
+                         device=dev)
+
+
+def param_gaps(a, b):
+    """Per-scenario max |a - b| over every parameter of two campaigns."""
+    import torch
+
+    return torch.stack([(a.params[k] - b.params[k]).abs().flatten(1).amax(1)
+                        for k in a.params]).amax(0)
+
+
+def explain_by_relu_flips(scenarios, fl, task, p, flags,
+                          rounds_run) -> dict:
+    """Why two campaigns that differ only in their merge's summation order
+    drift past 2e-6 in ``scenarios``.
+
+    Both runs are rerun on the same draws truncated to r = 1, 2, ...
+    rounds. At the first r where a scenario's parameter gap exceeds 2e-6,
+    the hidden pre-activations of round r - 1 (``x @ w1 + b1`` over every
+    client's batch, from the global parameters each run held entering that
+    round; one local step, so these are all of the round's ReLU inputs) are
+    compared: a sign that differs between the runs is a ReLU kink crossed
+    by a float32 rounding difference, after which the runs follow
+    different branches of the same function. Returns ``{scenario: (round,
+    sign flips, gap entering the round)}``.
+    """
+    from repro_torch.federated.campaign import (CampaignDraws,
+                                                generator_draws,
+                                                run_campaigns)
+    from repro_torch.optim import sgd
+
+    if not scenarios:
+        return {}
+    draws = generator_draws(fl, task.init_params, [fl.seed] * p.shape[0],
+                            dtype=p.dtype, churn=True, deadline=True,
+                            device=p.device)
+
+    def truncated(r, backend):
+        cut = CampaignDraws(mask=draws.mask[:, :r], params=draws.params,
+                            arrive=draws.arrive[:, :r],
+                            depart=draws.depart[:, :r],
+                            late=draws.late[:, :r])
+        return run_campaigns(dataclasses.replace(fl, max_rounds=r),
+                             *task.campaign_args(), sgd(LR), p,
+                             backend=backend, draws=cut, **flags)
+
+    found, pending = {}, set(scenarios)
+    entering = (draws.params, draws.params)
+    for r in range(1, rounds_run + 1):
+        runs = (truncated(r, "kernel"), truncated(r, "ref"))
+        gaps = param_gaps(*runs)
+        jumped = [b for b in sorted(pending) if gaps[b] > 2e-6]
+        if jumped:
+            images = task.client_data(range(fl.n_clients), r - 1,
+                                      fl.batch_per_client,
+                                      fl.local_steps)["images"]
+            x = images.reshape(fl.n_clients, -1, images[0, 0, 0].numel())
+            for b in jumped:
+                pre = [x @ q["w1"][b] + q["b1"][b] for q in entering]
+                flips = int(((pre[0] > 0) != (pre[1] > 0)).sum())
+                gap_in = max(float((entering[0][k][b] - entering[1][k][b])
+                                   .abs().max()) for k in entering[0])
+                found[b] = (r - 1, flips, gap_in)
+                pending.discard(b)
+        if not pending:
+            break
+        entering = (runs[0].params, runs[1].params)
+    return found
+
+
+def trace_campaign(run):
+    """Wall time of a warm ``run()`` untraced, then its device activity
+    under ``torch.profiler``: activities and busy time per round, the
+    ``fedavg_agg`` kernel's share of the busy time, and the idle share
+    (1 - busy / untraced wall) — ``None`` when the trace holds no device
+    events. Returns that and the untraced run's result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds = int(res.rounds.max())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, res
+    busy = sum(e.time_range.elapsed_us() for e in events) * 1e-6
+    merge = sum(e.time_range.elapsed_us() for e in events
+                if "fedavg_agg" in e.name) * 1e-6
+    return {"rounds": rounds, "wall_s": wall, "wall_ms_per_round":
+            wall / rounds * 1e3, "events_per_round": len(events) / rounds,
+            "busy_ms_per_round": busy / rounds * 1e3,
+            "merge_ms_per_round": merge / rounds * 1e3,
+            "idle_share": 1 - busy / wall}, res
+
+
 def max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
@@ -162,8 +357,15 @@ def main() -> int:
         P_MIN, poa_report, solve_heterogeneous, verify_equilibrium_batched)
     from repro_torch.core.controller import ParticipationController
     from repro_torch.core.duration import paper_duration_model
+    from repro_torch.core.energy import EnergyParams, per_node_energy_rates
+    from repro_torch.federated.campaign import (ChurnConfig, DeadlineConfig,
+                                                run_campaigns)
+    from repro_torch.federated.simulation import FLConfig
+    from repro_torch.federated.tasks import synthetic_mlp_task
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import fedavg_agg as fk
     from repro_torch.kernels import poibin_dft as pk
+    from repro_torch.optim import sgd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -260,6 +462,99 @@ def main() -> int:
               f" us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
               f"eager call: kernel {t['call_ms'] * 1e3:.2f} us, plain "
               f"{t['plain_call_ms'] * 1e3:.1f} us [{card}]")
+
+    # fedavg_agg at the campaign's shape (B, N, P) = (500, 50, 3258) and at
+    # the edges; slabs made on the card from a seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def slab(b, n, p, dtype=torch.float64):
+        g = torch.randn((b, p), generator=gen, device=dev, dtype=torch.float64)
+        c = torch.randn((b, n, p), generator=gen, device=dev,
+                        dtype=torch.float64)
+        return g.to(dtype), c.to(dtype)
+
+    def fcheck(label, g, c, m, atol):
+        """atol None: within one bf16 ulp of the plain version."""
+        got = fk.fedavg_agg(g, c, m)
+        want = ref.fedavg_agg_ref(g, c, m)
+        torch.cuda.synchronize()
+        if got.dtype != g.dtype or got.shape != g.shape or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"fedavg_agg {label}: {got.dtype} "
+                                 f"{tuple(got.shape)} / non-finite")
+        err = max_err(got, want)
+        if atol is None:
+            ok = bool(((got.float() - want.float()).abs()
+                       <= bf16_ulp(want)).all())
+            bound = "one bf16 ulp"
+        else:
+            ok, bound = err <= atol, f"atol {atol:g}"
+        empty = m.reshape(-1, m.shape[-1]).sum(-1) == 0
+        rows_g = g.reshape(-1, g.shape[-1])
+        fallback = bool(torch.equal(
+            got.reshape(-1, g.shape[-1])[empty],
+            rows_g[empty].float().to(g.dtype)))
+        print(f"fedavg_agg {label}: max |kernel - plain| = {err:.3e} "
+              f"({bound}); empty rows {int(empty.sum())}, previous global "
+              f"through fp32 bitwise: {fallback}")
+        if not (ok and fallback):
+            raise AssertionError(f"fedavg_agg {label}: error {err}, "
+                                 f"fallback {fallback}")
+        return err
+
+    g64, c64 = slab(B_FLEET, N_NODES, P_MLP)
+    m01 = torch.rand((B_FLEET, N_NODES), generator=gen, device=dev) < 0.6
+    err_fedavg = fcheck("(500, 50, 3258) f64 0/1 mask", g64, c64, m01, 2e-6)
+    weights = m01 * torch.rand((B_FLEET, N_NODES), generator=gen,
+                               device=dev) * 3.0
+    fcheck("(500, 50, 3258) f64 weighted mask", g64, c64, weights, 2e-6)
+    m_zero = m01.clone()
+    m_zero[[3, 250, 499]] = False
+    fcheck("(500, 50, 3258) f64, 3 all-zero rows", g64, c64, m_zero, 2e-6)
+    c32, g32 = c64.float(), g64.float()
+    fcheck("(500, 50, 3258) f32 0/1 mask", g32, c32, m_zero, 2e-6)
+    c16, g16 = c64.bfloat16(), g64.bfloat16()
+    fcheck("(500, 50, 3258) bf16 0/1 mask", g16, c16, m_zero, None)
+    g1, c1 = slab(7, 1, P_MLP)
+    m1 = torch.ones((7, 1), dtype=torch.bool, device=dev)
+    m1[2] = False
+    fcheck("(7, 1, 3258) f64 N=1", g1, c1, m1, 2e-6)
+    gr, cr = slab(9, 13, 1001)
+    mr = torch.rand((9, 13), generator=gen, device=dev) < 0.5
+    mr[4] = False
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        fcheck(f"(9, 13, 1001) {tag} ragged P", gr.to(dtype), cr.to(dtype),
+               mr, 2e-6)
+    fcheck("(9, 13, 1001) bf16 ragged P", gr.bfloat16(), cr.bfloat16(), mr,
+           None)
+    fcheck("(1001,) unbatched f64", gr[0], cr[0], mr[0], 2e-6)
+
+    m_lib = m01.to(torch.float64)[:, None, :]
+    ft = {"shape": [B_FLEET, N_NODES, P_MLP],
+          "ms": device_ms(lambda: fk.fedavg_agg(g64, c64, m01)),
+          "plain_ms": device_ms(lambda: ref.fedavg_agg_ref(g64, c64, m01),
+                                calls=2),
+          "library_ms": device_ms(lambda: torch.bmm(m_lib, c64), calls=5),
+          "call_ms": call_ms(lambda: fk.fedavg_agg(g64, c64, m01), 50),
+          "plain_call_ms": call_ms(
+              lambda: ref.fedavg_agg_ref(g64, c64, m01), 5),
+          "f32_ms": device_ms(lambda: fk.fedavg_agg(g32, c32, m01)),
+          "bf16_ms": device_ms(lambda: fk.fedavg_agg(g16, c16, m01))}
+    ft["bound_ms"], ft["bound_by"] = fedavg_bound_ms(B_FLEET, N_NODES, P_MLP,
+                                                     8)
+    print(f"fedavg_agg (500, 50, 3258) f64, device time: kernel "
+          f"{ft['ms'] * 1e3:.1f} us, plain {ft['plain_ms'] * 1e3:.1f} us, "
+          f"library bmm {ft['library_ms'] * 1e3:.1f} us, bound "
+          f"{ft['bound_ms'] * 1e3:.1f} us ({ft['bound_by']}); eager call: "
+          f"kernel {ft['call_ms'] * 1e3:.1f} us, plain "
+          f"{ft['plain_call_ms'] * 1e3:.1f} us; kernel on f32 / bf16 slabs "
+          f"{ft['f32_ms'] * 1e3:.1f} / {ft['bf16_ms'] * 1e3:.1f} us (bounds "
+          f"{fedavg_bound_ms(B_FLEET, N_NODES, P_MLP, 4)[0] * 1e3:.1f} / "
+          f"{fedavg_bound_ms(B_FLEET, N_NODES, P_MLP, 2)[0] * 1e3:.1f} us)"
+          f" [{card}]")
+    del g64, c64, c32, g32, c16, g16, m_lib
+    torch.cuda.empty_cache()
     phase_s["kernels"] = time.perf_counter() - t0
 
     # 4. the main path ------------------------------------------------------
@@ -391,7 +686,173 @@ def main() -> int:
               f"{sweep_trace['busy_s_per_sweep'] * 1e3:.2f} ms, idle share "
               f"{sweep_trace['idle_share']:.3f} [{card}]")
 
-    # 5. result lines -------------------------------------------------------
+    # 5. the campaign path -------------------------------------------------
+    fl = FLConfig(**CAMPAIGN)
+    task = synthetic_mlp_task(device="cuda")
+    tiers = [EnergyParams(p_hw_w=150.0, t_train_s=6.0) if i < N_NODES // 2
+             else EnergyParams() for i in range(N_NODES)]
+    e_part, e_idle = per_node_energy_rates(tiers, device="cuda")
+    flags = dict(energy_rates_j=(e_part[None], e_idle[None]),
+                 churn=ChurnConfig(arrival=0.5, departure=0.02),
+                 deadline=DeadlineConfig(miss=0.1), device="cuda")
+    p_ne = profiles["ne"]
+    pk.reset_counts()
+    fk.reset_counts()
+    ops.reset_dispatch_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    camp = run_campaigns(fl, *task.campaign_args(), sgd(LR), p_ne, **flags)
+    torch.cuda.synchronize()
+    phase_s["run_campaigns"] = time.perf_counter() - t0
+    camp_launches, camp_plain = fk.counts.launches, fk.counts.plain
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = ops.dispatch_stats()
+    rounds_run = int(camp.rounds.max())
+    print(f"run_campaigns ({B_FLEET} scenarios, N = {N_NODES}, up to "
+          f"{fl.max_rounds} rounds): wall "
+          f"{phase_s['run_campaigns']:.2f} s, rounds run {rounds_run}, "
+          f"fedavg_agg launches {camp_launches}, peak memory "
+          f"{peak_gib:.2f} GiB; dispatch {stats} [{card}]")
+    if camp_launches != rounds_run or camp_plain or pk.counts.plain or any(
+            "ref" in by for by in stats.values()):
+        raise AssertionError(f"campaign: {camp_launches} fedavg_agg launches "
+                             f"for {rounds_run} rounds, plain calls "
+                             f"{camp_plain}, dispatch {stats}")
+    r_max = fl.max_rounds
+    shapes = {"rounds": (B_FLEET,), "energy_wh": (B_FLEET,),
+              "mean_aoi": (B_FLEET,), "participation_rate": (B_FLEET,),
+              "acc_history": (B_FLEET, r_max), "k_history": (B_FLEET, r_max),
+              "per_node_aoi": (B_FLEET, N_NODES),
+              "straggler_counts": (B_FLEET, N_NODES),
+              "present_counts": (B_FLEET, N_NODES)}
+    for name, shape in shapes.items():
+        x = getattr(camp, name)
+        if tuple(x.shape) != shape or not x.is_cuda or not bool(
+                torch.isfinite(x.double()).all()):
+            raise AssertionError(f"campaign {name}: {tuple(x.shape)} on "
+                                 f"{x.device} / non-finite")
+    for k, v in camp.params.items():
+        if v.shape[0] != B_FLEET or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"campaign params {k}: {tuple(v.shape)}")
+    counts_ok = bool((camp.ledger.participation_counts
+                      <= camp.rounds[:, None]).all()) and bool(
+        (camp.ledger.rounds == camp.rounds).all())
+    if not counts_ok:
+        raise AssertionError("campaign: participation counts above rounds")
+    rounds_f = camp.rounds.double()
+    print(f"campaigns: converged {float(camp.converged.double().mean()):.3f},"
+          f" rounds min {int(camp.rounds.min())} mean "
+          f"{float(rounds_f.mean()):.2f} max {rounds_run}, energy "
+          f"{float(camp.energy_wh.mean()):.2f} Wh mean, mean AoI "
+          f"{float(camp.mean_aoi.mean()):.4f} rounds, participation "
+          f"{float(camp.participation_rate.mean()):.4f}, stragglers "
+          f"{int(camp.straggler_counts.sum())} [{card}]")
+
+    # the same campaigns (same seeds, so the same draws) through the merge's
+    # plain version: where the rounds agree, everything but the parameters
+    # is equal bitwise; a scenario whose rounds differ must be a threshold
+    # flip, its deciding accuracy one validation sample from the target
+    t0 = time.perf_counter()
+    camp_ref = run_campaigns(fl, *task.campaign_args(), sgd(LR), p_ne,
+                             backend="ref", **flags)
+    torch.cuda.synchronize()
+    phase_s["run_campaigns[ref]"] = time.perf_counter() - t0
+    same = camp.rounds == camp_ref.rounds
+    pairs = {"k_history": (camp.k_history, camp_ref.k_history),
+             "straggler_counts": (camp.straggler_counts,
+                                  camp_ref.straggler_counts),
+             "present_counts": (camp.present_counts, camp_ref.present_counts)}
+    for obj, other, tag in ((camp.ledger, camp_ref.ledger, "ledger"),
+                            (camp.aoi, camp_ref.aoi, "aoi")):
+        for f in dataclasses.fields(obj):
+            pairs[f"{tag}.{f.name}"] = (getattr(obj, f.name),
+                                        getattr(other, f.name))
+    unequal = [k for k, (a, b) in pairs.items()
+               if not torch.equal(a[same], b[same])]
+    gaps = param_gaps(camp, camp_ref)
+    param_err = float(gaps[same].max())
+    over = torch.nonzero(same & (gaps > 2e-6)).flatten().tolist()
+    kinks = explain_by_relu_flips(over, fl, task, p_ne, flags, rounds_run)
+    flips = []
+    for b in torch.nonzero(~same).flatten().tolist():
+        hit_k = camp.acc_history[b] >= TARGET_F32
+        hit_r = camp_ref.acc_history[b] >= TARGET_F32
+        r = int(torch.nonzero(hit_k != hit_r)[0])
+        accs = (float(camp.acc_history[b, r]), float(camp_ref.acc_history[b, r]))
+        flips.append((b, r, accs))
+    bad_flips = [f for f in flips
+                 if max(abs(a - TARGET_F32) for a in f[2]) > ACC_STEP]
+    within = float(gaps[same & (gaps <= 2e-6)].max())
+    print(f"kernel vs plain merge ({B_FLEET} campaigns, "
+          f"{phase_s['run_campaigns[ref]']:.2f} s): rounds differ in "
+          f"{len(flips)} {flips[:5]}; where equal: bitwise unequal fields "
+          f"{unequal}; parameters within 2e-6 in "
+          f"{int(same.sum()) - len(over)} scenarios (max {within:.3e}), "
+          f"beyond it in {len(over)} (max {param_err:.3e}): {kinks}")
+    unexplained = [b for b in over if kinks.get(b, (0, 0))[1] == 0]
+    if unequal or unexplained or bad_flips:
+        raise AssertionError(f"kernel vs plain merge: unequal {unequal}, "
+                             f"parameter gaps beyond 2e-6 without a ReLU "
+                             f"sign flip {unexplained}, non-threshold flips "
+                             f"{bad_flips}")
+
+    # where a campaign's time goes: the same call warm, timed bare, then
+    # traced by torch.profiler for its device activity
+    t0 = time.perf_counter()
+    camp_trace, again = trace_campaign(
+        lambda: run_campaigns(fl, *task.campaign_args(), sgd(LR), p_ne,
+                              **flags))
+    phase_s["campaign_trace"] = time.perf_counter() - t0
+    rerun_equal = all(torch.equal(v, again.params[k])
+                      for k, v in camp.params.items()) and torch.equal(
+        camp.acc_history, again.acc_history)
+    print(f"the same campaigns again through the kernel: parameters and "
+          f"accuracies bitwise equal: {rerun_equal}")
+    if not rerun_equal:
+        raise AssertionError("run_campaigns is not deterministic")
+    if camp_trace is None:
+        print("campaign trace: device time not measured (the profiler "
+              "returned no device events)")
+    else:
+        print(f"campaign trace ({camp_trace['rounds']} rounds of 500 "
+              f"scenarios, warm): wall {camp_trace['wall_s']:.3f} s, per "
+              f"round: wall {camp_trace['wall_ms_per_round']:.2f} ms, "
+              f"{camp_trace['events_per_round']:.0f} device activities, "
+              f"device busy {camp_trace['busy_ms_per_round']:.2f} ms, of it "
+              f"fedavg_agg {camp_trace['merge_ms_per_round']:.3f} ms; idle "
+              f"share {camp_trace['idle_share']:.3f} [{card}]")
+
+    # 6. card against CPU on replayed numpy draws ---------------------------
+    t0 = time.perf_counter()
+    small = {dev_name: small_campaign(dev_name)
+             for dev_name in ("cuda", "cpu")}
+    gpu, cpu = small["cuda"], small["cpu"]
+    fields = {"rounds": (gpu.rounds, cpu.rounds),
+              "k_history": (gpu.k_history, cpu.k_history),
+              "acc_history": (gpu.acc_history, cpu.acc_history),
+              "straggler_counts": (gpu.straggler_counts, cpu.straggler_counts),
+              "present_counts": (gpu.present_counts, cpu.present_counts),
+              "present_final": (gpu.present_final, cpu.present_final)}
+    for obj, other, tag in ((gpu.ledger, cpu.ledger, "ledger"),
+                            (gpu.aoi, cpu.aoi, "aoi")):
+        for f in dataclasses.fields(obj):
+            fields[f"{tag}.{f.name}"] = (getattr(obj, f.name),
+                                         getattr(other, f.name))
+    unequal = [k for k, (a, b) in fields.items() if not torch.equal(a.cpu(), b)]
+    small_err = max(max_err(v.cpu(), cpu.params[k])
+                    for k, v in gpu.params.items())
+    phase_s["card_vs_cpu"] = time.perf_counter() - t0
+    print(f"card vs CPU campaign (B = {SMALL['b']}, N = {SMALL['n']}, "
+          f"R = {SMALL['rounds']}, numpy draws): rounds "
+          f"{gpu.rounds.tolist()}, bitwise unequal fields {unequal}, "
+          f"parameters {small_err:.3e}")
+    if unequal:
+        raise AssertionError(f"card vs CPU campaign: unequal {unequal}")
+    for k, v in phase_s.items():
+        if k in ("run_campaigns", "run_campaigns[ref]", "card_vs_cpu"):
+            print(f"wall {k}: {v:.2f} s [{card}]")
+
+    # 7. result lines -------------------------------------------------------
     t = timing["loo"]
     kernels = [{
         "name": "poibin_dft", "route": "cuda",
@@ -400,6 +861,14 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": err_main,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+    }, {
+        "name": "fedavg_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
+        "replaces": "src/repro/kernels/fedavg_agg.py:45",
+        "launches": camp_launches, "max_abs_err": err_fedavg,
+        "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+        "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+        "library_ms": ft["library_ms"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,22 +7,35 @@ numpy arrays and Python scalars, e.g.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.core.comm80211ax import CommParams
 from repro_torch.core.controller import ParticipationController
 from repro_torch.core.duration import DurationModel
+from repro_torch.core.energy import EnergyParams
+from repro_torch.device import resolve_device
+from repro_torch.federated.simulation import FLConfig
 
-__all__ = ["DURATION_FIELDS", "CONTROLLER_FIELDS",
-           "duration_model_from_numpy", "controller_from_numpy"]
+__all__ = ["DURATION_FIELDS", "CONTROLLER_FIELDS", "COMM_FIELDS",
+           "ENERGY_FIELDS", "FL_CONFIG_FIELDS", "duration_model_from_numpy",
+           "controller_from_numpy", "comm_params_from_numpy",
+           "energy_params_from_numpy", "fl_config_from_numpy",
+           "params_from_numpy"]
 
 DURATION_FIELDS = ("coeffs", "n_nodes", "d_zero", "d_floor", "lo_frac",
                    "hi_frac", "rise")
 #: The controller's scalar fields that the port carries.
 CONTROLLER_FIELDS = ("n_nodes", "gamma", "cost", "mode", "fixed_p",
                      "target_poa")
+COMM_FIELDS = tuple(f.name for f in dataclasses.fields(CommParams))
+#: :class:`EnergyParams`' scalar fields; its ``comm`` goes by COMM_FIELDS.
+ENERGY_FIELDS = tuple(f.name for f in dataclasses.fields(EnergyParams)
+                      if f.name != "comm")
+FL_CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(FLConfig))
 
 
 def _require(fields: Mapping[str, Any], names: tuple[str, ...]) -> None:
@@ -45,16 +58,66 @@ def duration_model_from_numpy(fields: Mapping[str, Any]) -> DurationModel:
         rise=float(fields["rise"]))
 
 
+def _scalars(fields: Mapping[str, Any], cls, names: tuple[str, ...]) -> dict:
+    """``fields[names]`` as Python scalars of ``cls``'s annotated types."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.name in names:
+            v = fields[f.name]
+            out[f.name] = int(v) if f.type in (int, "int") else float(v)
+    return out
+
+
+def comm_params_from_numpy(fields: Mapping[str, Any]) -> CommParams:
+    """The port's :class:`CommParams` from the reference's fields."""
+    _require(fields, COMM_FIELDS)
+    return CommParams(**_scalars(fields, CommParams, COMM_FIELDS))
+
+
+def energy_params_from_numpy(fields: Mapping[str, Any],
+                             comm_fields: Mapping[str, Any] | None = None
+                             ) -> EnergyParams:
+    """The port's :class:`EnergyParams` from the reference's scalar fields
+    (:data:`ENERGY_FIELDS`) and, optionally, its ``comm``'s fields."""
+    _require(fields, ENERGY_FIELDS)
+    comm = {} if comm_fields is None else {
+        "comm": comm_params_from_numpy(comm_fields)}
+    return EnergyParams(**_scalars(fields, EnergyParams, ENERGY_FIELDS),
+                        **comm)
+
+
+def fl_config_from_numpy(fields: Mapping[str, Any]) -> FLConfig:
+    """The port's :class:`FLConfig` from the reference's fields."""
+    _require(fields, FL_CONFIG_FIELDS)
+    return FLConfig(**_scalars(fields, FLConfig, FL_CONFIG_FIELDS))
+
+
+def params_from_numpy(params: Mapping[str, Any], *,
+                      device: str | torch.device = "cuda") -> dict:
+    """A parameter dict (the reference's flat pytree, leaves as numpy
+    arrays) as the port's parameters: tensors on ``device``, each in its
+    array's dtype (float64 under the reference's x64), copied."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in params.items()}
+
+
 def controller_from_numpy(fields: Mapping[str, Any],
                           duration_fields: Mapping[str, Any] | None = None,
-                          *, device: str | torch.device = "cuda"
+                          *, energy_fields: Mapping[str, Any] | None = None,
+                          comm_fields: Mapping[str, Any] | None = None,
+                          device: str | torch.device = "cuda"
                           ) -> ParticipationController:
     """The port's controller from the reference controller's scalar fields
     (:data:`CONTROLLER_FIELDS`) and, optionally, its duration model's
-    fields (``None`` builds the port's own paper model)."""
+    fields (``None`` builds the port's own paper model) and its energy
+    parameters' fields (``None`` keeps the defaults)."""
     _require(fields, CONTROLLER_FIELDS)
     dur = (None if duration_fields is None
            else duration_model_from_numpy(duration_fields))
+    energy = ({} if energy_fields is None else {
+        "energy_params": energy_params_from_numpy(energy_fields,
+                                                  comm_fields)})
     return ParticipationController(
         n_nodes=int(fields["n_nodes"]),
         gamma=float(fields["gamma"]),
@@ -63,4 +126,5 @@ def controller_from_numpy(fields: Mapping[str, Any],
         fixed_p=float(fields["fixed_p"]),
         target_poa=float(fields["target_poa"]),
         duration_model=dur,
-        device=device)
+        device=device,
+        **energy)

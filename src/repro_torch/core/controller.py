@@ -9,8 +9,13 @@ asymmetric-NE / planner / uniform-γ* profiles, every scenario solved in
 Not ported yet, and raising ``NotImplementedError`` that names the
 ``ROADMAP.md`` item: the symmetric regime (``(B,)`` inputs, which the
 reference resolves through ``repro.mechanisms.batched``) and
-``mode="coalition"``. ``EnergyParams`` and ``RooflineClock`` come with the
-campaign slice.
+``mode="coalition"``.
+
+The controller carries the fleet's :class:`EnergyParams` for the campaign
+path (:meth:`new_ledger`, :meth:`with_roofline`). :class:`RooflineClock`
+models a round's training time from a step's operations and bytes; its
+peak rate, memory bandwidth and chip power have no defaults, because the
+reference's defaults describe a TPU.
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ from repro_torch.core.asymmetric_batched import (P_MIN, planner_batched,
                                                  solve_heterogeneous,
                                                  verify_equilibrium_batched)
 from repro_torch.core.duration import DurationModel, paper_duration_model
+from repro_torch.core.energy import EnergyLedger, EnergyParams
 from repro_torch.device import as_float64, resolve_device
 
-__all__ = ["ParticipationController"]
+__all__ = ["ParticipationController", "RooflineClock"]
 
 _SYMMETRIC_TODO = ("the symmetric (B,) regime of solve_batched is not ported "
                    "yet (ROADMAP.md, queue 1: the symmetric solver, "
@@ -36,6 +42,43 @@ _SYMMETRIC_TODO = ("the symmetric (B,) regime of solve_batched is not ported "
                    "per-node matrices")
 _COALITION_TODO = ("mode='coalition' is not ported yet (ROADMAP.md, queue 1: "
                    "coalitions, core/coalition.py)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineClock:
+    """Analytic per-round training time from a step's roofline terms.
+
+    Port of :class:`repro.core.controller.RooflineClock`. The device
+    numbers are required: pass the card's own (for an H100 SXM, for
+    instance, its data-sheet peak for the step's type and 3.35e12 B/s).
+
+    Attributes:
+        flops_per_step: operations of one local training step.
+        hbm_bytes_per_step: device-memory bytes one step moves.
+        peak_flops: per-device peak rate for the step's type (FLOP/s).
+        hbm_bw: per-device memory bandwidth (B/s).
+        chip_power_w: per-device board power for E_train accounting (W).
+        steps_per_round: local steps in one FL round.
+        chips: devices available to one client.
+    """
+
+    flops_per_step: float
+    hbm_bytes_per_step: float
+    peak_flops: float
+    hbm_bw: float
+    chip_power_w: float
+    steps_per_round: int = 1
+    chips: int = 1
+
+    @property
+    def t_train_s(self) -> float:
+        t_compute = self.flops_per_step / (self.chips * self.peak_flops)
+        t_memory = self.hbm_bytes_per_step / (self.chips * self.hbm_bw)
+        return self.steps_per_round * max(t_compute, t_memory)
+
+    @property
+    def p_hw_w(self) -> float:
+        return self.chips * self.chip_power_w
 
 
 @dataclasses.dataclass
@@ -62,6 +105,8 @@ class ParticipationController:
                   "mechanism", "coalition"] = "ne"
     fixed_p: float = 0.5
     duration_model: Optional[DurationModel] = None
+    energy_params: EnergyParams = dataclasses.field(
+        default_factory=EnergyParams)
     target_poa: float = 1.05
     device: str | torch.device = "cuda"
 
@@ -73,6 +118,20 @@ class ParticipationController:
             raise ValueError(
                 f"duration model is for N={self.duration_model.n_nodes}, "
                 f"controller has N={self.n_nodes}")
+
+    def new_ledger(self) -> EnergyLedger:
+        """A fresh ``(N,)`` per-node :class:`EnergyLedger` (Joules) on the
+        controller's device."""
+        return EnergyLedger.create(self.n_nodes, device=self.device)
+
+    def with_roofline(self, clock: RooflineClock) -> "ParticipationController":
+        """The controller with roofline-derived training time and power."""
+        ep = dataclasses.replace(
+            self.energy_params,
+            p_hw_w=clock.p_hw_w,
+            t_train_s=min(clock.t_train_s, self.energy_params.t_round_s),
+        )
+        return dataclasses.replace(self, energy_params=ep)
 
     def solve_batched(
         self,

@@ -1,0 +1,4 @@
+"""Deterministic synthetic datasets of the port (:mod:`repro.data`)."""
+from repro_torch.data.synthetic import SyntheticCifar
+
+__all__ = ["SyntheticCifar"]

@@ -1,9 +1,10 @@
 """Resolution of the ``device=`` argument every entry point takes."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_float64"]
+__all__ = ["resolve_device", "as_float64", "as_tensor"]
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -28,3 +29,12 @@ def as_float64(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float64)
     return torch.tensor(x, dtype=torch.float64, device=device)
+
+
+def as_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device`` in its own dtype; a non-tensor goes through
+    ``numpy.array`` (copied), so Python floats become float64, as under
+    the reference's x64."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.array(x)).to(device)

@@ -3,8 +3,9 @@
 Every ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` under the repository root (a
 git-ignored directory); the hash covers the source and the flags, so an
-edited source is never served a stale library. :func:`build` runs
-``nvcc`` once per source. :func:`load` returns the ``ctypes`` handle, building first if needed.
+edited source is never served a stale library. :func:`build` starts one
+``nvcc`` per source, all together, and waits for all of them. :func:`load`
+returns the ``ctypes`` handle, building first if needed.
 Nothing here runs at import time: this module imports on a machine with no
 ``nvcc`` and no card.
 """
@@ -51,10 +52,12 @@ def _nvcc() -> str:
 def build(names: list[str] | None = None) -> dict[str, float]:
     """Compile the named sources (default: all) that are not built yet.
 
-    Returns ``{name: seconds}`` for the sources compiled by this call; the
-    compiler's register/shared-memory report (``-Xptxas -v``) is kept
-    beside each library as ``<lib>.log``. Raises with the compiler's
-    output if any build fails.
+    One ``nvcc`` per source, all started together. Returns
+    ``{name: seconds}`` for the sources compiled by this call, each from
+    the common start to the end of its own compiler; the compiler's
+    register/shared-memory report (``-Xptxas -v``) is kept beside each
+    library as ``<lib>.log``. Raises with the compiler's output if any
+    build fails (after every compiler has ended).
     """
     names = sources() if names is None else names
     todo = [n for n in names if not library_path(n).exists()]
@@ -62,21 +65,33 @@ def build(names: list[str] | None = None) -> dict[str, float]:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    seconds = {}
+    jobs = {}
+    t0 = time.perf_counter()
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")   # no half-written .so
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        seconds[name] = time.perf_counter() - t0
+        log = out.with_suffix(".so.log")
+        with open(log, "w") as sink:
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=sink, stderr=subprocess.STDOUT)
+        jobs[name] = (proc, tmp, out, log)
+    seconds: dict[str, float] = {}
+    while len(seconds) < len(jobs):
+        for name, (proc, *_rest) in jobs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.02)
+    failed = []
+    for name, (proc, tmp, out, log) in jobs.items():
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
-                               f"{proc.returncode})\n{proc.stdout}")
-        out.with_suffix(".so.log").write_text(proc.stdout)
-        os.replace(tmp, out)
+            failed.append(f"kernel build failed: {name} (nvcc exit "
+                          f"{proc.returncode})\n{log.read_text()}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -1,8 +1,8 @@
 """Backend dispatch for the port's kernels.
 
-Port of :mod:`repro.kernels.ops` (resolution and telemetry, plus the
-Poisson-binomial wrappers of this slice). Every dispatched call has two
-implementations:
+Port of :mod:`repro.kernels.ops` (resolution and telemetry, the
+Poisson-binomial wrappers and the FedAvg merge). Every dispatched call has
+two implementations:
 
 * ``backend="kernel"`` — the hand-written CUDA kernel. For a tensor on the
   CPU its wrapper runs the kernel's plain version instead (same fp32
@@ -33,11 +33,12 @@ import sys
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.fedavg_agg import fedavg_agg
 from repro_torch.kernels.poibin_dft import poibin_dft
 
 __all__ = ["BACKENDS", "ENV_VAR", "resolve_backend", "set_backend",
            "backend_scope", "dispatch_stats", "reset_dispatch_stats",
-           "poibin", "poibin_pmf"]
+           "poibin", "poibin_pmf", "fedavg", "fedavg_merge"]
 
 BACKENDS = ("kernel", "ref")
 ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
@@ -153,3 +154,58 @@ def poibin_pmf(p_mat: torch.Tensor, *, backend: str | None = None):
     if resolve_backend(backend, site="ops.poibin_pmf") == "ref":
         return ref.poibin_dft_ref(p_mat, with_loo=False)
     return poibin_dft(p_mat, with_loo=False)
+
+
+def fedavg(global_flat: torch.Tensor, client_flat: torch.Tensor,
+           mask: torch.Tensor, *, backend: str | None = None,
+           site: str = "ops.fedavg") -> torch.Tensor:
+    """Masked FedAvg merge on flat parameters.
+
+    global_flat ``(P,)`` or ``(B, P)``; client_flat ``(N, P)`` or
+    ``(B, N, P)``; mask ``(N,)`` or ``(B, N)``, bool or float (pre-scaled
+    weights) -> the global's shape and dtype. Ragged P, N = 1 and the
+    all-zero mask (previous-global fallback) are handled by both backends.
+    """
+    if resolve_backend(backend, site=site) == "ref":
+        return ref.fedavg_agg_ref(global_flat, client_flat, mask)
+    return fedavg_agg(global_flat, client_flat, mask)
+
+
+def fedavg_merge(global_params: dict, client_params: dict,
+                 mask: torch.Tensor, *,
+                 backend: str | None = None) -> dict:
+    """Flat-kernel twin of :func:`repro_torch.federated.server.fedavg_merge`
+    (the reference's ``ops.fedavg_merge_pallas``).
+
+    ``global_params`` leaves are ``(*batch, ...)``, ``client_params``
+    leaves ``(*batch, N, ...)`` and ``mask`` is ``(*batch, N)``, with
+    ``batch`` empty or ``(B,)``. A single leaf is passed to the kernel as
+    it lies (a reshape, so no copy when it is contiguous): that is how the
+    campaign engine hands over its flat ``(B, N, P)`` client slab. Several
+    leaves are concatenated once — in their dtype when they share one,
+    else in fp32 — and split back, each in its own dtype.
+    """
+    if mask.dim() not in (1, 2):
+        raise ValueError(f"mask must be (N,) or (B, N), got "
+                         f"{tuple(mask.shape)}")
+    batch = tuple(mask.shape[:-1])
+    n = mask.shape[-1]
+    names = list(global_params)
+    g_leaves = [global_params[k].reshape(*batch, -1) for k in names]
+    c_leaves = [client_params[k].reshape(*batch, n, -1) for k in names]
+    if len(names) == 1:
+        g_flat, c_flat = g_leaves[0], c_leaves[0]
+    else:
+        dtypes = {x.dtype for x in g_leaves + c_leaves}
+        dt = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        g_flat = torch.cat([x.to(dt) for x in g_leaves], dim=-1)
+        c_flat = torch.cat([x.to(dt) for x in c_leaves], dim=-1)
+    merged = fedavg(g_flat, c_flat, mask, backend=backend,
+                    site="ops.fedavg_merge")
+    out, off = {}, 0
+    for k, g in zip(names, g_leaves):
+        size = g.shape[-1]
+        leaf = global_params[k]
+        out[k] = merged[..., off:off + size].reshape(leaf.shape).to(leaf.dtype)
+        off += size
+    return out

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth).
 
-Port of :func:`repro.kernels.ref.poibin_dft_ref`. The kernel wrappers run
+Ports of :func:`repro.kernels.ref.poibin_dft_ref` and
+:func:`repro.kernels.ref.fedavg_agg_ref`. The kernel wrappers run
 these for a tensor on the CPU; ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
@@ -10,7 +11,7 @@ import torch
 
 from repro_torch.core.poibin import poibin_pmf, poibin_pmf_loo
 
-__all__ = ["poibin_dft_ref"]
+__all__ = ["poibin_dft_ref", "fedavg_agg_ref"]
 
 
 def poibin_dft_ref(p_mat: torch.Tensor, with_loo: bool = True):
@@ -28,3 +29,23 @@ def poibin_dft_ref(p_mat: torch.Tensor, with_loo: bool = True):
     if not with_loo:
         return pmf
     return pmf, poibin_pmf_loo(pmf[:, None, :], p_mat)
+
+
+def fedavg_agg_ref(global_flat: torch.Tensor, client_flat: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the client axis with the k = 0 fallback.
+
+    global_flat: ``(P,)`` or ``(B, P)``; client_flat: ``(N, P)`` or
+    ``(B, N, P)``; mask: ``(N,)`` or ``(B, N)``, bool 0/1 participation or
+    float participation·weight products (the weighted FedAvg path — the
+    math is the same Σmθ/Σm). fp32 accumulation (a product over the client
+    axis, as the reference's einsum); output in ``global_flat.dtype``; an
+    all-zero mask returns the previous global cast through fp32.
+    """
+    m = mask.to(torch.float32)
+    total = torch.sum(m, dim=-1, keepdim=True)
+    avg = torch.matmul(m.unsqueeze(-2),
+                       client_flat.to(torch.float32)).squeeze(-2) \
+        / torch.clamp(total, min=1e-9)
+    return torch.where(total > 0, avg,
+                       global_flat.to(torch.float32)).to(global_flat.dtype)

@@ -130,6 +130,29 @@ def _port_files() -> list[Path]:
         ROOT / "chip_smoke.py"]
 
 
+#: Every module of the port, slice by slice: the import check below must
+#: reach each of them.
+PORT_MODULES = (
+    "__init__", "convert", "device", "rng",
+    "core/__init__", "core/poibin", "core/duration", "core/aoi",
+    "core/utility", "core/asymmetric_batched", "core/controller",
+    "core/comm80211ax", "core/energy",
+    "kernels/__init__", "kernels/build", "kernels/ops", "kernels/ref",
+    "kernels/poibin_dft", "kernels/fedavg_agg",
+    "optim/__init__", "optim/base", "optim/sgd",
+    "data/__init__", "data/synthetic",
+    "federated/__init__", "federated/participation", "federated/client",
+    "federated/server", "federated/tasks", "federated/simulation",
+    "federated/campaign",
+)
+
+
+def test_import_check_reaches_every_port_module():
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for module in PORT_MODULES:
+        assert f"src/repro_torch/{module}.py" in checked, module
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax_or_the_reference(path):

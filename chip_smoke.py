@@ -10,8 +10,9 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and time the builds;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes, and time both (and, for
-   ``fedavg_agg``, one library call computing the same products);
+   main paths' shapes and at edge shapes (for the model kernels also at
+   phi4-mini's GQA and 200,064-word vocabulary), and time both and, where
+   one exists, the library call computing the same function;
 4. drive the game path — ``ParticipationController.solve_batched`` on a
    (500, 50) heterogeneous fleet in modes ``"ne"`` and ``"centralized"``,
    then ``poa_report`` — with the launch counters zeroed just before and
@@ -24,7 +25,15 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    again through the merge's plain version on the same draws and compare;
 6. run a small campaign on the card and on the CPU from the same numpy
    draws and compare them;
-7. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+7. drive the model path — a (2, 4) fleet solved in mode ``"ne"``, then
+   ``run_campaigns`` of ``model_task`` on stablelm-3b at full width and 2 of
+   its 32 layers (bf16, 256 tokens, B = 2 scenarios x N = 4 clients, 4
+   rounds), every local step through ``flash_attention`` (once a layer)
+   and ``fused_ce``, every round through ``fedavg_agg`` — with the counters
+   zeroed just before and read just after; check the outputs, then run it
+   again through the plain oracles (``backend="ref"``) on the same draws
+   and compare;
+8. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 TF32 is switched off for matrix products (and cuDNN), so the float64/fp32
 einsums of the kernel path run at full precision. Without CUDA, or without
@@ -54,6 +63,15 @@ LR = 0.15
 TARGET_F32 = 0.7300000190734863     # float32(0.73), the tracker's target
 ACC_STEP = 1 / 128                   # one validation sample
 SMALL = dict(b=4, n=6, rounds=12)    # the card-vs-CPU campaign
+H100_BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# the model path: stablelm-3b at full width, 2 of its 32 layers
+MODEL_ARCH, MODEL_LAYERS, MODEL_SEQ, MODEL_VAL = "stablelm-3b", 2, 256, 16
+MODEL_FLEET = (2, 4)                 # (B scenarios, N clients)
+MODEL_FL = dict(n_clients=4, local_steps=1, batch_per_client=4,
+                max_rounds=4, target_acc=0.99, seed=1)
+MODEL_LR = 0.1
+MODEL_P = 416_179_200                # its parameters per replica
+MODEL_TOL = 3e-2                     # tests/test_kernels.py:15, bf16
 
 
 def card_line() -> str:
@@ -146,6 +164,58 @@ def fedavg_bound_ms(b: int, n: int, p: int, itemsize: int
     ops = b * (2 * n * p + p)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _peak(dtype) -> float:
+    import torch
+
+    return H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else H100_FP32_FLOP_PER_S
+
+
+def flash_bound_ms(b: int, s: int, h: int, kv: int, d: int, dtype,
+                   causal: bool = True, window: int = 0
+                   ) -> tuple[float, str]:
+    """Least time for one flash_attention call on an H100 SXM.
+
+    Bytes: q, k, v read once, the output written once. Operations: the
+    two products over the (query, key) pairs the mask keeps, 4 D per pair
+    (this run's mask: causal and window counted exactly), at the peak of
+    the input type (bf16 tensor cores, or fp32 outside them).
+    """
+    import torch
+
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (2 * b * s * h * d + 2 * b * s * kv * d)
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep &= i >= j
+    if window > 0:
+        keep &= (i - j) < window
+    ops = 4 * b * h * d * int(keep.sum())
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / _peak(dtype) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_ce_bound_ms(r: int, t: int, d: int, v: int, dtype
+                      ) -> tuple[float, str]:
+    """Least time for one fused_ce call on an H100 SXM.
+
+    Bytes: hidden and W read once, int64 labels read once, the fp32 NLL
+    written once. Operations: the logits' products, 2 d per logit, at the
+    peak of the input type.
+    """
+    import torch
+
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (r * t * d + r * d * v) + 8 * r * t + 4 * r * t
+    ops = 2 * r * t * d * v
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / _peak(dtype) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -306,18 +376,20 @@ def explain_by_relu_flips(scenarios, fl, task, p, flags,
     return found
 
 
-def trace_campaign(run):
+def trace_campaign(run, kernels=("fedavg_agg",), warm=True):
     """Wall time of a warm ``run()`` untraced, then its device activity
     under ``torch.profiler``: activities and busy time per round, the
-    ``fedavg_agg`` kernel's share of the busy time, and the idle share
-    (1 - busy / untraced wall) — ``None`` when the trace holds no device
-    events. Returns that and the untraced run's result."""
+    named kernels' device time per round, and the idle share (1 - busy /
+    untraced wall) — ``None`` when the trace holds no device events.
+    ``warm=False`` skips the warm-up call (the caller has run it).
+    Returns that and the untraced run's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()
-    torch.cuda.synchronize()
+    if warm:
+        run()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
@@ -331,12 +403,17 @@ def trace_campaign(run):
     if not events:
         return None, res
     busy = sum(e.time_range.elapsed_us() for e in events) * 1e-6
-    merge = sum(e.time_range.elapsed_us() for e in events
-                if "fedavg_agg" in e.name) * 1e-6
+    per_kernel = {k: sum(e.time_range.elapsed_us() for e in events
+                         if k in e.name) * 1e-3 / rounds for k in kernels}
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() * 1e-3 / rounds
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"rounds": rounds, "wall_s": wall, "wall_ms_per_round":
             wall / rounds * 1e3, "events_per_round": len(events) / rounds,
             "busy_ms_per_round": busy / rounds * 1e3,
-            "merge_ms_per_round": merge / rounds * 1e3,
+            "kernel_ms_per_round": per_kernel, "top_ms_per_round": top,
             "idle_share": 1 - busy / wall}, res
 
 
@@ -346,6 +423,7 @@ def max_err(got, want) -> float:
 
 def main() -> int:
     import torch
+    from torch.func import vmap
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -358,12 +436,17 @@ def main() -> int:
     from repro_torch.core.controller import ParticipationController
     from repro_torch.core.duration import paper_duration_model
     from repro_torch.core.energy import EnergyParams, per_node_energy_rates
-    from repro_torch.federated.campaign import (ChurnConfig, DeadlineConfig,
-                                                run_campaigns)
+    from repro_torch.federated.campaign import (PARAMS_STREAM, ChurnConfig,
+                                                DeadlineConfig, run_campaigns)
     from repro_torch.federated.simulation import FLConfig
-    from repro_torch.federated.tasks import synthetic_mlp_task
+    from repro_torch.configs import get_config
+    from repro_torch.federated.tasks import model_task, synthetic_mlp_task
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.models.registry import get_model
+    from repro_torch.rng import generator
     from repro_torch.kernels import fedavg_agg as fk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ce as fc
     from repro_torch.kernels import poibin_dft as pk
     from repro_torch.optim import sgd
 
@@ -554,6 +637,165 @@ def main() -> int:
           f"{fedavg_bound_ms(B_FLEET, N_NODES, P_MLP, 2)[0] * 1e3:.1f} us)"
           f" [{card}]")
     del g64, c64, c32, g32, c16, g16, m_lib
+    torch.cuda.empty_cache()
+
+    # fedavg_agg at the model path's (2, 4, 416,179,200) bf16 slab
+    g_m = torch.randn((MODEL_FLEET[0], MODEL_P), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    c_m = torch.randn((*MODEL_FLEET, MODEL_P), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    m_m = torch.tensor([[True, False, True, True], [False, False, False,
+                                                    False]], device=dev)
+    fcheck("(2, 4, 416179200) bf16 [model path], one empty row", g_m, c_m,
+           m_m, None)
+    fm = {"ms": device_ms(lambda: fk.fedavg_agg(g_m, c_m, m_m), calls=3,
+                          replays=3),
+          "call_ms": call_ms(lambda: fk.fedavg_agg(g_m, c_m, m_m), 3),
+          "library_ms": device_ms(lambda: torch.bmm(
+              m_m.to(torch.bfloat16)[:, None, :], c_m), calls=3, replays=3)}
+    fm["bound_ms"], fm["bound_by"] = fedavg_bound_ms(*MODEL_FLEET, MODEL_P, 2)
+    print(f"fedavg_agg (2, 4, 416179200) bf16, device time: kernel "
+          f"{fm['ms']:.3f} ms, library bmm {fm['library_ms']:.3f} ms, bound "
+          f"{fm['bound_ms']:.3f} ms ({fm['bound_by']}); eager call "
+          f"{fm['call_ms']:.3f} ms [{card}]")
+    del g_m, c_m
+    torch.cuda.empty_cache()
+
+    # flash_attention and fused_ce at the model path's shapes, at edge
+    # shapes and at phi4-mini's; inputs made on the card from the seed
+    bf16, fp32 = torch.bfloat16, torch.float32
+
+    def rand(*shape, dtype=fp32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def within(label, got, want, tol):
+        """tol None: within one bf16 ulp of the plain version plus 2e-5
+        (both round an fp32 result to bf16, and the two fp32 results differ
+        by ~1e-6, more than an ulp of an output near 0); else
+        allclose(atol=rtol=tol)."""
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        err = max_err(got, want)
+        if tol is None:
+            ok = bool(((got.float() - want.float()).abs()
+                       <= bf16_ulp(want) + 2e-5).all())
+            bound = "one bf16 ulp + 2e-5"
+        else:
+            ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol))
+            bound = f"atol = rtol = {tol:g}"
+        print(f"{label}: max |kernel - plain| = {err:.3e} ({bound})")
+        if not ok:
+            raise AssertionError(f"{label}: error {err} beyond {bound}")
+        return err
+
+    def qkv(b, s, h, kv, d, dtype):
+        return rand(b, s, h, d, dtype=dtype), rand(b, s, kv, d, dtype=dtype), \
+            rand(b, s, kv, d, dtype=dtype)
+
+    def fa_check(label, shape, dtype, causal=True, window=0):
+        q, k, v = qkv(*shape, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if got.dtype != dtype or got.shape != q.shape:
+            raise AssertionError(f"flash_attention {label}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        return within(f"flash_attention {label}", got,
+                      fa.plain(q, k, v, causal=causal, window=window),
+                      None if dtype == bf16 else 2e-5)
+
+    fa_main = (4 * MODEL_FLEET[0] * MODEL_FLEET[1], MODEL_SEQ, 32, 32, 80)
+    fa_phi = (4, MODEL_SEQ, 24, 8, 128)
+    err_flash = max(
+        fa_check("(32, 256, 32/32, 80) bf16 causal [model path]", fa_main,
+                 bf16),
+        fa_check("(4, 256, 24/8, 128) bf16 causal [phi4-mini GQA]", fa_phi,
+                 bf16))
+    fa_check("(32, 256, 32/32, 80) fp32 causal", fa_main, fp32)
+    fa_check("(3, 200, 4/2, 80) fp32 causal, ragged S", (3, 200, 4, 2, 80),
+             fp32)
+    fa_check("(2, 256, 8/8, 64) bf16 window 100", (2, 256, 8, 8, 64), bf16,
+             window=100)
+    fa_check("(2, 77, 4/1, 128) fp32 window 1, ragged S (each row keeps "
+             "only itself; the padded rows of the last tile keep no key)",
+             (2, 77, 4, 1, 128), fp32, window=1)
+    fa_check("(2, 130, 4/4, 80) fp32 non-causal, ragged S",
+             (2, 130, 4, 4, 80), fp32, causal=False)
+
+    def ce_inputs(r, t, d, v, dtype):
+        labels = torch.randint(0, v, (r, t), generator=gen, device=dev)
+        return (rand(r, t, d, dtype=dtype),
+                rand(r, d, v, dtype=dtype, scale=d ** -0.5), labels)
+
+    def ce_check(label, h, w, labels):
+        got = fc.fused_ce(h, w, labels)
+        if got.dtype != fp32 or got.shape != labels.shape:
+            raise AssertionError(f"fused_ce {label}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        return within(f"fused_ce {label}", got,
+                      ref.fused_ce_ref(h, w, labels), 2e-5)
+
+    ce_main = (MODEL_FLEET[0] * MODEL_FLEET[1], 4 * MODEL_SEQ, 2560, 50304)
+    ce_phi = (1, 4 * MODEL_SEQ, 3072, 200_064)
+    ce_m = ce_inputs(*ce_main, bf16)
+    ce_p = ce_inputs(*ce_phi, bf16)
+    err_ce = max(
+        ce_check("(8, 1024, 2560) x (8, 2560, 50304) bf16 [model path]",
+                 *ce_m),
+        ce_check("(1, 1024, 3072) x (1, 3072, 200064) bf16 [phi4-mini]",
+                 *ce_p))
+    ce_check("(3, 100, 48) x (3, 48, 1000) fp32, ragged T and V",
+             *ce_inputs(3, 100, 48, 1000, fp32))
+    ce_check("(2, 70, 37) x (2, 37, 515) bf16, ragged T, V and d",
+             *ce_inputs(2, 70, 37, 515, bf16))
+    h1, w1, l1 = ce_inputs(1, 50, 64, 333, fp32)
+    ce_check("(50, 64) x (64, 333) fp32, unbatched", h1[0], w1[0], l1[0])
+    flat_w = rand(6, 48 * 1000 + 17, scale=48 ** -0.5)
+    w_view = flat_w[:, :48_000].view(6, 48, 1000)   # read where it lies
+    ce_check("(6, 64, 48) x (6, 48, 1000) fp32, W a strided slab view",
+             rand(6, 64, 48), w_view,
+             torch.randint(0, 1000, (6, 64), generator=gen, device=dev))
+    del flat_w, w_view
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    model_timing = {}
+    for name, shape in (("flash_attention", fa_main),
+                        ("flash_attention phi4", fa_phi)):
+        q, k, v = qkv(*shape, bf16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        gqa = shape[2] != shape[3]
+        t = model_timing[name] = {
+            "shape": list(shape),
+            "ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": device_ms(lambda: fa.plain(q, k, v), calls=2),
+            "library_ms": device_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=gqa), calls=5),
+            "call_ms": call_ms(lambda: fa.flash_attention(q, k, v), 20),
+            "plain_call_ms": call_ms(lambda: fa.plain(q, k, v), 3)}
+        t["bound_ms"], t["bound_by"] = flash_bound_ms(*shape, bf16)
+    for name, (h, w, labels) in (("fused_ce", ce_m), ("fused_ce phi4", ce_p)):
+        t = model_timing[name] = {
+            "shape": [list(h.shape), list(w.shape)],
+            "ms": device_ms(lambda: fc.fused_ce(h, w, labels), calls=2,
+                            replays=3),
+            "plain_ms": device_ms(lambda: ref.fused_ce_ref(h, w, labels),
+                                  calls=1, replays=2),
+            "library_ms": device_ms(lambda: torch.nn.functional.cross_entropy(
+                torch.matmul(h, w).flatten(0, 1), labels.flatten(),
+                reduction="none"), calls=2, replays=3),
+            "call_ms": call_ms(lambda: fc.fused_ce(h, w, labels), 3),
+            "plain_call_ms": call_ms(lambda: ref.fused_ce_ref(h, w, labels),
+                                     1)}
+        t["bound_ms"], t["bound_by"] = fused_ce_bound_ms(
+            *h.shape, w.shape[-1], bf16)
+    for name, t in model_timing.items():
+        print(f"{name} {t['shape']} bf16, device time: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); eager call: kernel {t['call_ms']:.4f} ms,"
+              f" plain {t['plain_call_ms']:.4f} ms [{card}]")
+    del ce_m, ce_p
     torch.cuda.empty_cache()
     phase_s["kernels"] = time.perf_counter() - t0
 
@@ -819,7 +1061,8 @@ def main() -> int:
               f"round: wall {camp_trace['wall_ms_per_round']:.2f} ms, "
               f"{camp_trace['events_per_round']:.0f} device activities, "
               f"device busy {camp_trace['busy_ms_per_round']:.2f} ms, of it "
-              f"fedavg_agg {camp_trace['merge_ms_per_round']:.3f} ms; idle "
+              f"fedavg_agg {camp_trace['kernel_ms_per_round']['fedavg_agg']:.3f}"
+              f" ms; idle "
               f"share {camp_trace['idle_share']:.3f} [{card}]")
 
     # 6. card against CPU on replayed numpy draws ---------------------------
@@ -852,7 +1095,158 @@ def main() -> int:
         if k in ("run_campaigns", "run_campaigns[ref]", "card_vs_cpu"):
             print(f"wall {k}: {v:.2f} s [{card}]")
 
-    # 7. result lines -------------------------------------------------------
+    # 7. the model path -----------------------------------------------------
+    # a (2, 4) fleet solved as in phase 4 (the paper's duration curve on
+    # N = 4), then FedAvg campaigns of stablelm-3b clients at full width
+    t0 = time.perf_counter()
+    b_m, n_m = MODEL_FLEET
+    rng = np.random.default_rng(1)
+    costs_m = rng.uniform(0.5, 12.0, (b_m, n_m))
+    gammas_m = rng.uniform(0.2, 1.0, (b_m, n_m))
+    ctrl_m = ParticipationController(
+        n_nodes=n_m, duration_model=dataclasses.replace(dur, n_nodes=n_m),
+        device="cuda")
+    p_model = ctrl_m.solve_batched(gammas_m, costs_m, mode="ne")
+    torch.cuda.synchronize()
+    phase_s["model_fleet"] = time.perf_counter() - t0
+    cfg_m = dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_LAYERS)
+    fl_m = FLConfig(**MODEL_FL)
+    tasks_m = {backend: model_task(cfg_m, MODEL_SEQ, backend=backend,
+                                   val_size=MODEL_VAL, device="cuda")
+               for backend in ("kernel", "ref")}
+    api_m = get_model(cfg_m)
+    val_loss = vmap(api_m.loss, in_dims=(0, None))   # the plain path
+    tokens_per_step = b_m * n_m * fl_m.batch_per_client * MODEL_SEQ
+
+    def model_campaign(backend):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = run_campaigns(fl_m, *tasks_m[backend].campaign_args(),
+                            sgd(MODEL_LR), p_model, device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    for m in (pk, fk, fa, fc):
+        m.reset_counts()
+    ops.reset_dispatch_stats()
+    torch.cuda.reset_peak_memory_stats()
+    camp_m, wall_m = model_campaign("kernel")
+    model_launches = {"flash_attention": fa.counts.launches,
+                      "fused_ce": fc.counts.launches,
+                      "fedavg_agg": fk.counts.launches}
+    plain_calls = [m.counts.plain for m in (pk, fk, fa, fc)]
+    stats = ops.dispatch_stats()
+    peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase_s["run_campaigns[model]"] = wall_m
+    rounds_m = int(camp_m.rounds.max())
+    want_launches = {"flash_attention": MODEL_LAYERS * fl_m.local_steps
+                     * fl_m.max_rounds,
+                     "fused_ce": fl_m.local_steps * fl_m.max_rounds,
+                     "fedavg_agg": fl_m.max_rounds}
+    n_params = sum(v[0].numel() for v in camp_m.params.values())
+    print(f"model path: {MODEL_ARCH} at full width (d_model "
+          f"{cfg_m.d_model}, {cfg_m.n_heads} x {cfg_m.resolved_head_dim} "
+          f"heads, d_ff {cfg_m.d_ff}, vocab {cfg_m.vocab}, "
+          f"{cfg_m.param_dtype}), {MODEL_LAYERS} of 32 layers, "
+          f"{n_params:,} parameters a replica, B = {b_m} x N = {n_m}, "
+          f"{MODEL_SEQ} tokens, p {p_model.tolist()}; rounds run "
+          f"{rounds_m}, launches {model_launches}, dispatch {stats}")
+    if model_launches != want_launches or any(plain_calls) or any(
+            "ref" in by for by in stats.values()):
+        raise AssertionError(f"model path: launches {model_launches}, "
+                             f"expected {want_launches}; plain calls "
+                             f"{plain_calls}; dispatch {stats}")
+    if n_params != MODEL_P or rounds_m != fl_m.max_rounds:
+        raise AssertionError(f"model path: {n_params} parameters, "
+                             f"{rounds_m} rounds")
+    for name, shape in {"acc_history": (b_m, fl_m.max_rounds),
+                        "energy_wh": (b_m,), "mean_aoi": (b_m,),
+                        "k_history": (b_m, fl_m.max_rounds)}.items():
+        x = getattr(camp_m, name)
+        if tuple(x.shape) != shape or not bool(
+                torch.isfinite(x.double()).all()):
+            raise AssertionError(f"model campaign {name}: "
+                                 f"{tuple(x.shape)} / non-finite")
+    for k, v in camp_m.params.items():
+        if v.dtype != torch.bfloat16 or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"model params {k}: {v.dtype} / non-finite")
+    val_m = tasks_m["kernel"].val_batch
+    loss_k = val_loss(camp_m.params, val_m)
+    init_m = tasks_m["kernel"].init_params(generator(dev, fl_m.seed,
+                                                     PARAMS_STREAM))
+    loss_0 = float(api_m.loss(init_m, val_m))         # the shared start
+    del init_m
+    if not bool(torch.isfinite(loss_k).all()):
+        raise AssertionError(f"model path: validation loss {loss_k}")
+    print(f"model campaigns (kernel path): wall {wall_m:.2f} s, "
+          f"{wall_m / rounds_m:.3f} s a round (the first round's warm-up "
+          f"included), {tokens_per_step * fl_m.local_steps * rounds_m / wall_m:,.0f}"
+          f" training tokens/s, peak memory {peak_m:.2f} GiB; accuracies "
+          f"{camp_m.acc_history.tolist()}, energy "
+          f"{camp_m.energy_wh.tolist()} Wh, mean AoI "
+          f"{camp_m.mean_aoi.tolist()}, k {camp_m.k_history.tolist()}, "
+          f"validation loss {loss_0:.4f} at the start, {loss_k.tolist()} "
+          f"at the end (ln V = {np.log(cfg_m.vocab):.3f}) [{card}]")
+
+    # the same campaigns (same seeds: the same draws and data) through the
+    # plain oracles of both model kernels
+    camp_r, wall_r = model_campaign("ref")
+    phase_s["run_campaigns[model, ref]"] = wall_r
+    pairs = {"rounds": (camp_m.rounds, camp_r.rounds),
+             "k_history": (camp_m.k_history, camp_r.k_history)}
+    for obj, other, tag in ((camp_m.ledger, camp_r.ledger, "ledger"),
+                            (camp_m.aoi, camp_r.aoi, "aoi")):
+        for f in dataclasses.fields(obj):
+            pairs[f"{tag}.{f.name}"] = (getattr(obj, f.name),
+                                        getattr(other, f.name))
+    unequal = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    loss_r = val_loss(camp_r.params, val_m)
+    gaps_m = {k: float((v.float() - camp_r.params[k].float()).abs().max())
+              for k, v in camp_m.params.items()}
+    worst = max(gaps_m, key=gaps_m.get)
+    moved = sum(int((v != camp_r.params[k]).sum())
+                for k, v in camp_m.params.items())
+    a_w, b_w = camp_m.params[worst].float(), camp_r.params[worst].float()
+    at = int((a_w - b_w).abs().argmax())
+    pair = (float(a_w.flatten()[at]), float(b_w.flatten()[at]))
+    ulps = gaps_m[worst] / float(bf16_ulp(torch.tensor(max(map(abs, pair)))))
+    loss_gap = max_err(loss_k, loss_r)
+    print(f"model path, kernel vs plain oracles (ref run {wall_r:.2f} s): "
+          f"bitwise unequal fields {unequal}; accuracies "
+          f"{camp_r.acc_history.tolist()}; parameters differ in {moved:,} "
+          f"of {2 * MODEL_P:,} entries, max {gaps_m[worst]:.3e} at {worst} "
+          f"({pair[0]:.6g} vs {pair[1]:.6g}: {ulps:.1f} bf16 ulps at that "
+          f"magnitude; atol {MODEL_TOL}); validation loss "
+          f"{loss_r.tolist()}, gap {loss_gap:.3e} (atol {MODEL_TOL})")
+    if unequal or gaps_m[worst] > MODEL_TOL or loss_gap > MODEL_TOL:
+        raise AssertionError(f"model path kernel vs ref: unequal {unequal},"
+                             f" parameters {gaps_m[worst]}, loss {loss_gap}")
+
+    # where a model round's time goes: one more kernel campaign, traced
+    t0 = time.perf_counter()
+    model_trace, _ = trace_campaign(
+        lambda: model_campaign("kernel")[0], warm=False,
+        kernels=("flash_attention", "fused_ce", "fedavg_agg"))
+    phase_s["model_trace"] = time.perf_counter() - t0
+    if model_trace is None:
+        print("model trace: device time not measured (the profiler "
+              "returned no device events)")
+    else:
+        print(f"model trace (one campaign of {rounds_m} rounds, warm): wall "
+              f"{model_trace['wall_s']:.3f} s, per round: "
+              f"{model_trace['events_per_round']:.0f} device activities, "
+              f"device busy {model_trace['busy_ms_per_round']:.2f} ms, of it "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                          model_trace["kernel_ms_per_round"].items())
+              + f"; idle share {model_trace['idle_share']:.3f} [{card}]")
+        print("model trace, the largest device activities per round: "
+              + "; ".join(f"{name[:70]} {ms:.2f} ms" for name, ms in
+                          model_trace["top_ms_per_round"]))
+    for k in ("model_fleet", "run_campaigns[model]",
+              "run_campaigns[model, ref]", "model_trace"):
+        print(f"wall {k}: {phase_s[k]:.2f} s [{card}]")
+
+    # 8. result lines -------------------------------------------------------
     t = timing["loo"]
     kernels = [{
         "name": "poibin_dft", "route": "cuda",
@@ -865,11 +1259,28 @@ def main() -> int:
         "name": "fedavg_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
         "replaces": "src/repro/kernels/fedavg_agg.py:45",
-        "launches": camp_launches, "max_abs_err": err_fedavg,
+        "launches": camp_launches + model_launches["fedavg_agg"],
+        "max_abs_err": err_fedavg,
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
         "library_ms": ft["library_ms"],
     }]
+    for name, src, line, err in (
+            ("flash_attention", "flash_attention", 99, err_flash),
+            ("fused_ce", "fused_ce", 77, err_ce)):
+        t = model_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{src}.py:{line}",
+            "launches": model_launches[name], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(f"launches by path: poibin_dft game {main_launches}; fedavg_agg "
+          f"campaign {camp_launches}, model {model_launches['fedavg_agg']}; "
+          f"flash_attention model {model_launches['flash_attention']}; "
+          f"fused_ce model {model_launches['fused_ce']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.core.comm80211ax import CommParams
 from repro_torch.core.controller import ParticipationController
 from repro_torch.core.duration import DurationModel
@@ -24,7 +26,8 @@ __all__ = ["DURATION_FIELDS", "CONTROLLER_FIELDS", "COMM_FIELDS",
            "ENERGY_FIELDS", "FL_CONFIG_FIELDS", "duration_model_from_numpy",
            "controller_from_numpy", "comm_params_from_numpy",
            "energy_params_from_numpy", "fl_config_from_numpy",
-           "params_from_numpy"]
+           "params_from_numpy", "MODEL_CONFIG_FIELDS",
+           "model_config_from_numpy", "model_params_from_numpy"]
 
 DURATION_FIELDS = ("coeffs", "n_nodes", "d_zero", "d_floor", "lo_frac",
                    "hi_frac", "rise")
@@ -36,6 +39,8 @@ COMM_FIELDS = tuple(f.name for f in dataclasses.fields(CommParams))
 ENERGY_FIELDS = tuple(f.name for f in dataclasses.fields(EnergyParams)
                       if f.name != "comm")
 FL_CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(FLConfig))
+MODEL_CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(ModelConfig))
+_SUB_CONFIGS = {"mla": MLAConfig, "moe": MoEConfig, "ssm": SSMConfig}
 
 
 def _require(fields: Mapping[str, Any], names: tuple[str, ...]) -> None:
@@ -92,14 +97,53 @@ def fl_config_from_numpy(fields: Mapping[str, Any]) -> FLConfig:
     return FLConfig(**_scalars(fields, FLConfig, FL_CONFIG_FIELDS))
 
 
+def _tensor(x) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, which numpy only knows as an
+    extension dtype) as a CPU tensor of the same dtype, copied."""
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_numpy(params: Mapping[str, Any], *,
                       device: str | torch.device = "cuda") -> dict:
     """A parameter dict (the reference's flat pytree, leaves as numpy
     arrays) as the port's parameters: tensors on ``device``, each in its
     array's dtype (float64 under the reference's x64), copied."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v)).to(dev)
-            for k, v in params.items()}
+    return {k: _tensor(v).to(dev) for k, v in params.items()}
+
+
+def model_config_from_numpy(fields: Mapping[str, Any]) -> ModelConfig:
+    """The port's :class:`ModelConfig` from a reference ``ModelConfig``'s
+    fields (``dataclasses.asdict(cfg)``: the ``mla``/``moe``/``ssm``
+    sub-configs as dicts or None)."""
+    _require(fields, MODEL_CONFIG_FIELDS)
+    kw = {f: fields[f] for f in MODEL_CONFIG_FIELDS}
+    for name, cls in _SUB_CONFIGS.items():
+        if kw[name] is not None:
+            kw[name] = cls(**dict(kw[name]))
+    return ModelConfig(**kw)
+
+
+def model_params_from_numpy(tree: Mapping[str, Any], *,
+                            device: str | torch.device = "cuda") -> dict:
+    """A reference model's nested parameter tree (``{"embed", "layers":
+    {"body": {...}}, "ln_f": {...}, "lm_head"}``, leaves as numpy arrays)
+    as the port's flat dict with dotted names (``layers.body.attn.wq``),
+    shapes and dtypes kept, on ``device``."""
+    flat: dict = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[f"{prefix}{k}"] = v
+
+    walk(tree, "")
+    return params_from_numpy(flat, device=device)
 
 
 def controller_from_numpy(fields: Mapping[str, Any],

@@ -142,7 +142,9 @@ class CampaignDraws:
     Attributes:
         mask: ``(B, R, N)`` participation uniforms in ``p``'s dtype: node
             i joins round r iff ``mask[b, r, i] < p[b, i]``.
-        params: initial parameters, leaves ``(B, ...)`` float64.
+        params: initial parameters, leaves ``(B, ...)`` in the task's dtype
+            (float64 for the MLP task, the config's for a model: the flat
+            client slab then holds that dtype, which ``fedavg_agg`` reads).
         arrive / depart: ``(B, R, N)`` float64 churn uniforms (churn only).
         late: ``(B, R, N)`` float64 deadline uniforms (deadlines only).
     """

@@ -4,7 +4,9 @@ Every ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` under the repository root (a
 git-ignored directory); the hash covers the source and the flags, so an
 edited source is never served a stale library. :func:`build` starts one
-``nvcc`` per source, all together, and waits for all of them. :func:`load`
+``nvcc`` per source (four today: ``poibin_dft``, ``fedavg_agg``,
+``flash_attention``, ``fused_ce``), all together, and waits for all of
+them. :func:`load`
 returns the ``ctypes`` handle, building first if needed.
 Nothing here runs at import time: this module imports on a machine with no
 ``nvcc`` and no card.

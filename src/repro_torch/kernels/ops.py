@@ -1,8 +1,8 @@
 """Backend dispatch for the port's kernels.
 
 Port of :mod:`repro.kernels.ops` (resolution and telemetry, the
-Poisson-binomial wrappers and the FedAvg merge). Every dispatched call has
-two implementations:
+Poisson-binomial wrappers, the FedAvg merge, attention and the fused
+cross-entropy). Every dispatched call has two implementations:
 
 * ``backend="kernel"`` — the hand-written CUDA kernel. For a tensor on the
   CPU its wrapper runs the kernel's plain version instead (same fp32
@@ -23,6 +23,15 @@ Backend resolution order (first hit wins):
 
 PyTorch runs eagerly, so resolution happens at every call and every
 resolution with a ``site`` is counted (:func:`dispatch_stats`).
+
+The model kernels (:func:`attention`, :func:`cross_entropy`) compute a
+forward pass only, as in the reference. Their kernel backend is a
+``torch.autograd.Function`` — the twin of the reference's
+``_pallas_fwd_ref_bwd`` (``repro/kernels/ops.py:69-88``): the forward runs
+the kernel, the backward is ``torch.func.vjp`` of the plain oracle at the
+saved inputs. Its ``vmap`` rule folds every vmapped dimension into the
+kernel's leading batch axis, so ``vmap(vmap(grad(loss)))`` over (scenario,
+client) replicas ends in one launch per call.
 """
 from __future__ import annotations
 
@@ -34,11 +43,14 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_agg import fedavg_agg
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_ce import fused_ce
 from repro_torch.kernels.poibin_dft import poibin_dft
 
 __all__ = ["BACKENDS", "ENV_VAR", "resolve_backend", "set_backend",
            "backend_scope", "dispatch_stats", "reset_dispatch_stats",
-           "poibin", "poibin_pmf", "fedavg", "fedavg_merge"]
+           "poibin", "poibin_pmf", "fedavg", "fedavg_merge", "attention",
+           "cross_entropy"]
 
 BACKENDS = ("kernel", "ref")
 ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
@@ -209,3 +221,98 @@ def fedavg_merge(global_params: dict, client_params: dict,
         out[k] = merged[..., off:off + size].reshape(leaf.shape).to(leaf.dtype)
         off += size
     return out
+
+
+# ---------------------------------------------------------------------------
+# Model kernels: kernel forward, oracle-VJP backward, one launch under vmap
+# ---------------------------------------------------------------------------
+
+def _fold(x: torch.Tensor, bdim: int | None, n: int) -> torch.Tensor:
+    """``x`` with its vmapped dimension ``bdim`` (or, if not batched at
+    this level, an expanded one) moved to the front: ``(n, *logical)``."""
+    if bdim is None:
+        return x.expand(n, *x.shape)
+    return x.movedim(bdim, 0)
+
+
+class _Attention(torch.autograd.Function):
+    """Flash-attention kernel forward, ``flash_attention_ref`` VJP backward."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, ctx.causal, ctx.window = inputs
+        ctx.save_for_backward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def oracle(q, k, v):
+            return ref.flash_attention_ref(q, k, v, causal=ctx.causal,
+                                           window=ctx.window)
+
+        _, vjp = torch.func.vjp(oracle, *ctx.saved_tensors)
+        return (*vjp(grad), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+        q, k, v = (_fold(x, d, n).flatten(0, 1)
+                   for x, d in zip((q, k, v), in_dims))
+        out = _Attention.apply(q, k, v, causal, window)
+        return out.unflatten(0, (n, -1)), 0
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Fused cross-entropy kernel forward, ``fused_ce_ref`` VJP backward."""
+
+    @staticmethod
+    def forward(hidden, w, labels):
+        return fused_ce(hidden, w, labels)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        hidden, w, labels = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda h, w: ref.fused_ce_ref(h, w, labels), hidden, w)
+        return (*vjp(grad), None)
+
+    @staticmethod
+    def vmap(info, in_dims, hidden, w, labels):
+        n = info.batch_size
+        # logical hidden is (T, d), or (R, T, d) once an inner level folded
+        lead = (hidden.dim() - (in_dims[0] is not None)) == 3
+        args = [_fold(x, d, n) for x, d in zip((hidden, w, labels), in_dims)]
+        if lead:
+            args = [x.flatten(0, 1) for x in args]
+        out = _CrossEntropy.apply(*args)
+        return (out.unflatten(0, (n, -1)) if lead else out), 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              backend: str | None = None) -> torch.Tensor:
+    """Flash attention. q: ``(B, S, H, D)``; k, v: ``(B, S, KV, D)`` →
+    ``(B, S, H, D)`` in q's dtype. ``"kernel"`` (default): the CUDA kernel
+    forward (its plain version on CPU tensors), differentiable through the
+    oracle; ``"ref"``: the oracle."""
+    if resolve_backend(backend, site="ops.attention") == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _Attention.apply(q, k, v, causal, window)
+
+
+def cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                  labels: torch.Tensor, *,
+                  backend: str | None = None) -> torch.Tensor:
+    """Fused per-token NLL without the ``(T, V)`` logits. hidden ``(T, d)``,
+    w_vocab ``(d, V)``, labels ``(T,)`` → ``(T,)`` float32. Backends as in
+    :func:`attention`."""
+    if resolve_backend(backend, site="ops.cross_entropy") == "ref":
+        return ref.fused_ce_ref(hidden, w_vocab, labels)
+    return _CrossEntropy.apply(hidden, w_vocab, labels)

@@ -144,6 +144,14 @@ PORT_MODULES = (
     "federated/__init__", "federated/participation", "federated/client",
     "federated/server", "federated/tasks", "federated/simulation",
     "federated/campaign",
+    "configs/__init__", "configs/base", "configs/stablelm_3b",
+    "configs/phi4_mini_3_8b", "configs/gemma_2b", "configs/rwkv6_3b",
+    "configs/hymba_1_5b", "configs/olmoe_1b_7b", "configs/internvl2_26b",
+    "configs/minicpm3_4b", "configs/deepseek_v2_236b", "configs/whisper_tiny",
+    "configs/resnet18_cifar",
+    "models/__init__", "models/runtime", "models/layers",
+    "models/transformer", "models/registry",
+    "kernels/flash_attention", "kernels/fused_ce",
 )
 
 
